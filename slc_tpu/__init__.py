@@ -1,14 +1,13 @@
-"""slc_tpu — a TPU-native structured-light depth engine.
+"""slc_tpu — a structured-light depth engine in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
+A JAX/XLA framework with the capabilities of the reference
 DynaFrame pipeline (structured-light 3D reconstruction for dynamic scenes:
 Gray-code + N-step phase-shift decoding, temporal/multi-frequency/spatial
 phase unwrapping, projector-camera triangulation, per-frame stripe tracking)
-re-designed TPU-first:
+re-designed for an accelerator:
 
 * the functional core is pure jit-compiled kernels ``(images, calib, state)
-  -> (depth, state)`` in float32,
-* dense stencil hot paths are Pallas TPU kernels,
+  -> (depth, state)`` in float32, which XLA fuses for the GPU,
 * multi-device scaling uses ``jax.sharding.Mesh`` + ``shard_map`` with image
   tiles and ``ppermute`` halo exchange (no hand-written transport),
 * multi-scan fusion runs distributed Gauss-Newton/Schur bundle adjustment

@@ -13,6 +13,12 @@ from __future__ import annotations
 import argparse
 import sys
 
+# The moving scene `synth` renders: the frame-0 surface shifted along +z
+# by SYNTH_DZ per dynamic frame, lit by a stripe of SYNTH_STRIPE_PERIOD
+# projector px (recorded in the manifest for phase-locked tracking).
+SYNTH_DZ = 0.08
+SYNTH_STRIPE_PERIOD = 12
+
 
 def _add_cfg_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--cam", default=None,
@@ -245,13 +251,8 @@ def main(argv=None) -> int:
     runp.add_argument("--chunk", type=int, default=1,
                       help="scan K consecutive frames per device "
                            "dispatch (amortizes per-frame dispatch "
-                           "RPC on remote/tunneled hosts; fault/"
-                           "anchor/checkpoint semantics preserved)")
-    runp.add_argument("--fast-subpixel", action="store_true",
-                      help="fast sub-pixel tracking on TPU: the stripe "
-                           "parabola fraction rides the packed extremum "
-                           "tournament quantized to 1/128 px (~20% "
-                           "faster step, identical winner)")
+                           "cost; fault/anchor/checkpoint semantics "
+                           "preserved)")
     runp.add_argument("--strict-loop", action="store_true",
                       help="reference-style synchronous read->step->"
                            "write loop instead of the streaming "
@@ -313,8 +314,7 @@ def main(argv=None) -> int:
     if args.cmd == "bench":
         sys.path.insert(0, ".")
         import bench
-        bench.main()
-        return 0
+        return bench.main()
 
     manifest = None
     if args.cmd == "run":
@@ -343,8 +343,8 @@ def main(argv=None) -> int:
                 calib, cfg, surface, het.periods(cfg.pro_w),
                 het.phase_steps, noise_sigma=args.noise)
         frames = None
-        z0, dz = 50.0, 0.08
-        stripe_period = 12
+        z0, dz = 50.0, SYNTH_DZ
+        stripe_period = SYNTH_STRIPE_PERIOD
         if args.frames:
             # Move the DECODED scene along +z (see the capture CLI
             # comment): for --scene plane this reproduces the old
@@ -402,7 +402,6 @@ def main(argv=None) -> int:
             phase_lock=None if ref else lock,
             refine_period=args.refine_period,
             out_format=args.out_format, stream=not args.strict_loop,
-            frac_bits=7 if args.fast_subpixel and not ref else 0,
             chunk=args.chunk)
         last = report.metrics.records[-1] if report.metrics.records else {}
         print(f"done: frames={report.frames_done} "
@@ -413,5 +412,13 @@ def main(argv=None) -> int:
     return 1
 
 
+def cli() -> int:
+    """Process entry point: set up the compile cache, then run
+    :func:`main` (which in-process callers use directly)."""
+    from slc_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
+    return main()
+
+
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(cli())

@@ -3,9 +3,9 @@
 The reference has no checkpointing; its dynamic loop is restart-from-
 zero only (SURVEY.md §5). The carried state is tiny and explicit
 (TrackerState: P, stripW, stripB, z, frame_idx — CCalculation.cpp:
-603-606, :656-658, :774), so any frame is a resume point. Uses orbax
-when available, with a dependency-free .npz fallback writing through an
-atomic rename so a crash mid-save never corrupts the latest checkpoint.
+603-606, :656-658, :774), so any frame is a resume point. Each
+checkpoint is one .npz file written through an atomic rename, so a crash
+mid-save never corrupts the latest checkpoint.
 """
 
 from __future__ import annotations
@@ -20,43 +20,27 @@ import numpy as np
 
 from slc_tpu.dynamic import TrackerState
 
-try:
-    import orbax.checkpoint as ocp
-    _HAVE_ORBAX = True
-except Exception:                                   # pragma: no cover
-    _HAVE_ORBAX = False
-
 _FIELDS = ("proj_u", "strip_w", "strip_b", "z", "frame_idx")
 
 
 def save_state(path: str, state: TrackerState) -> str:
-    """Save a TrackerState; returns the path written. ``path`` is a
-    directory (orbax) or gets an .npz suffix (fallback)."""
+    """Save a TrackerState; returns the path written (``path`` with an
+    .npz suffix)."""
     state = jax.device_get(state)
-    if _HAVE_ORBAX:
-        ckptr = ocp.StandardCheckpointer()
-        path = os.path.abspath(path)
-        ckptr.save(path, {f: np.asarray(getattr(state, f))
-                          for f in _FIELDS}, force=True)
-        ckptr.wait_until_finished()
-        return path
     if not path.endswith(".npz"):
         path = path + ".npz"
-    tmp = path + ".tmp"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path[:-len(".npz")] + ".tmp.npz"
     np.savez(tmp, **{f: np.asarray(getattr(state, f)) for f in _FIELDS})
-    os.replace(tmp + ".npz" if os.path.exists(tmp + ".npz") else tmp, path)
+    os.replace(tmp, path)
     return path
 
 
 def load_state(path: str) -> TrackerState:
-    if _HAVE_ORBAX and os.path.isdir(path):
-        ckptr = ocp.StandardCheckpointer()
-        data = ckptr.restore(os.path.abspath(path))
-    else:
-        if not path.endswith(".npz") and os.path.exists(path + ".npz"):
-            path = path + ".npz"
-        with np.load(path) as f:
-            data = {k: f[k] for k in _FIELDS}
+    if not path.endswith(".npz") and os.path.exists(path + ".npz"):
+        path = path + ".npz"
+    with np.load(path) as f:
+        data = {k: f[k] for k in _FIELDS}
     return TrackerState(
         proj_u=jnp.asarray(data["proj_u"]),
         strip_w=jnp.asarray(data["strip_w"]),

@@ -1,6 +1,6 @@
 """Point clouds, normals, shaded preview renders, and ASCII export.
 
-TPU-native re-design of the reference's point-cloud utilities
+Vectorized re-design of the reference's point-cloud utilities
 (DynaFrame/depthMapUtils.cpp) and result writer
 (DynaFrame/CCalculation.cpp:323-357): per-pixel loops become dense
 vectorized maps; the latent ``static`` min/max caching bug of the

@@ -20,8 +20,8 @@ Distribution (slc_tpu.parallel mesh): landmarks are sharded across all
 devices; every Schur term is a sum over landmarks, so each device
 reduces its local landmarks and a single `psum` forms the global
 reduced system, which is solved replicated (96 x 96 for 16 scans). The
-landmark back-substitution is purely local. This is DP over DCN at the
-multi-host scale with one tiny collective per GN iteration.
+landmark back-substitution is purely local: data parallelism across
+devices and hosts with one tiny collective per GN iteration.
 
 Gauge freedom is fixed by freezing scan 0's pose.
 """
@@ -64,11 +64,12 @@ def synthetic_problem(rng, s: int = 6, l: int = 64, noise: float = 0.0,
 
 
 def _highest_precision(fn):
-    """TPU einsums default to reduced (bf16-pass) precision; the Schur
-    system is ill-conditioned enough that single-device and
-    landmark-sharded computation orders visibly diverge there (0.15
-    pose delta vs 1e-4 at f32). Every GN step traces at highest matmul
-    precision — the tensors are tiny (96x96 solve), so this is free."""
+    """Trace ``fn`` at "highest" matmul precision. On the GPU a float32
+    contraction may otherwise run in TF32 (10-bit mantissa). On the
+    16-scan problem TF32 moved the poses by 1.5e-5 against a host f32
+    solve, 5x the 3.2e-6 at "highest" (H100; PERF.md, "TF32"): small,
+    but the tensors are tiny (96x96 solve), so full precision is
+    free."""
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
         with jax.default_matmul_precision("highest"):
@@ -243,6 +244,7 @@ def gn_step_p2l(rot, trans, landmarks, normals, obs, mask,
 
 
 @functools.partial(jax.jit, static_argnames=("iters",))
+@_highest_precision
 def fuse_scans_p2l(obs: jax.Array, mask: jax.Array, normals: jax.Array,
                    init_rot: jax.Array, init_trans: jax.Array,
                    init_landmarks: jax.Array,
@@ -256,6 +258,7 @@ def fuse_scans_p2l(obs: jax.Array, mask: jax.Array, normals: jax.Array,
 
 
 @functools.partial(jax.jit, static_argnames=("iters",))
+@_highest_precision
 def fuse_scans(obs: jax.Array, mask: jax.Array,
                init_rot: Optional[jax.Array] = None,
                init_trans: Optional[jax.Array] = None,
@@ -287,6 +290,7 @@ def fuse_scans(obs: jax.Array, mask: jax.Array,
     return jax.lax.fori_loop(0, iters, body, (rot, trans, lm))
 
 
+@_highest_precision
 def ate_rmse(rot, trans, rot_gt, trans_gt) -> jax.Array:
     """Absolute trajectory error after aligning to the gauge of scan 0:
     express every pose relative to scan 0 in both sets, compare

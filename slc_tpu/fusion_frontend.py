@@ -104,11 +104,11 @@ def associate_projective(depths: jax.Array, cam_k: jax.Array,
     returned for the point-to-plane solve.
 
     Runs at highest matmul precision: the pose transforms contract
-    against 3x3 rotations, which TPU einsums otherwise evaluate in
-    bf16 passes — at landmark magnitudes of ~60 scene units that is
-    ~0.2 of absolute error, which showed up as an irreducible ~0.05
-    ATE floor at 2 MP (poses drifted even when initialized at ground
-    truth). The contractions are tiny; full precision is free."""
+    against 3x3 rotations, which a GPU may otherwise evaluate in TF32
+    (10-bit mantissa): at landmark magnitudes of ~60 scene units that
+    is up to 60 * 2^-11 ~ 0.03 of absolute error per product, above the
+    registration's ATE.
+    The contractions are tiny; full precision is free."""
     def grid_world(depth_s, rot_s, trans_s):
         pts, nrm, ok = grid_points_normals(depth_s, cam_k, grid_step)
         return (se3.apply(rot_s, trans_s, pts),

@@ -1,6 +1,6 @@
 // Native I/O for slc_tpu: BMP codec + fast ASCII point-cloud writer.
 //
-// TPU-native replacement for the runtime roles OpenCV played in the
+// Replacement for the runtime roles OpenCV played in the
 // reference: cv::imread of dataset BMPs (DynaFrame/CSensorV.cpp:111-114),
 // cv::imwrite archival (DynaFrame/CStorage.cpp:41-55), and the per-frame
 // ofstream point-cloud dumps (DynaFrame/CCalculation.cpp:323-357) whose

@@ -1,8 +1,7 @@
-"""Dense per-pixel kernels (jit/XLA reference implementations).
+"""Dense per-pixel kernels as jit/XLA functions.
 
-Pallas-optimized fused variants live in ``slc_tpu.pallas``; every op here
-is the semantically-authoritative XLA version used for correctness tests
-and as the CPU fallback.
+These are the only implementations: XLA compiles the same code for the
+GPU and for the CPU the tests run on.
 """
 
 from slc_tpu.ops.phase import decode_phase, phase_sincos, modulation

@@ -64,12 +64,10 @@ import jax.numpy as jnp
 import numpy as np
 
 
-#: Row-band height of the carrier-consistency gate. The fused kernels
-#: gate per grid block and DEFAULT their block_h to this constant
-#: (pallas/dynamic_lock.py, pallas/phaselock.py import it), so the XLA
-#: and Pallas paths agree on which bands gate; a caller overriding
-#: block_h changes the TPU gate granularity accordingly (the nominal
-#: no-gradient case is unaffected — every band passes).
+#: Row-band height of the carrier-consistency gate, an algorithm
+#: parameter: the gate averages the carrier gradient over bands of this
+#: many rows and zeroes the correction band by band (a partial last band
+#: is averaged over the rows it has).
 GATE_BAND = 64
 
 
@@ -144,9 +142,8 @@ def stripe_phase_correction(frame: jax.Array, proj_u_pred: jax.Array,
         drift every frame; static scenes ~0). Free-running drift can
         accumulate to ~3 mrad/px, which is why the gate keys on the
         locked loop's own prediction.
-        When a 64-row band's amplitude-gated mean |g| exceeds this
-        threshold that band's correction is zeroed (GATE_BAND matches
-        the fused kernel's block height, so backends agree): the
+        When a GATE_BAND-row band's amplitude-gated mean |g| exceeds
+        this threshold that band's correction is zeroed: the
         tracker falls back to open-loop integration there instead of
         absorbing a systematically wrong snap (the failure mode measured before
         this gate: +-2-5% period error drove median z error to ~2
@@ -203,10 +200,8 @@ def stripe_phase_correction(frame: jax.Array, proj_u_pred: jax.Array,
     ok = (amp > amp_floor) & (proj_u_pred > 0)
     if max_carrier_gradient and math.isfinite(max_carrier_gradient):
         # Carrier-consistency gate (see docstring): amplitude-gated
-        # mean of the wrapped lane gradient of delta_phi, evaluated
-        # PER GATE_BAND-ROW BAND — the same granularity the fused TPU
-        # kernels use (their gate is per 64-row block), so backends
-        # agree on which bands lock. A mis-specified period's constant
+        # mean of the wrapped column gradient of delta_phi, evaluated
+        # PER GATE_BAND-ROW BAND. A mis-specified period's constant
         # gradient trips every band; a genuinely local gradient (depth
         # rim, fast local motion) locks out only its own band.
         def wrapg(x):
@@ -244,7 +239,7 @@ def estimate_period(frame: jax.Array, proj_u: jax.Array,
         1/T_true = 1/T_nom + m / (2*pi)
 
     with m estimated by amplitude-gated least squares of the wrapped
-    lane gradient of delta_phi against the lane gradient of P. One
+    column gradient of delta_phi against the column gradient of P. One
     refinement round removes the first-order window decorrelation a
     large mismatch causes (``iters=2`` re-demodulates at the first
     estimate); valid to ~+-10% initial error (beyond that the carrier

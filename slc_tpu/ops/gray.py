@@ -7,7 +7,7 @@ loaded from a text file ``Patterns/vGrayCode.txt`` (CDecodeGray.cpp:113-125),
 and finally ``result = bin * period`` with ``period = PRO_W / 2**N``
 (CDecodeGray.cpp:200, :183).
 
-TPU-native differences:
+Differences from the reference:
 * the binarization ``saturate_u8(pattern - inverse) > 0`` is equivalent to
   ``pattern > inverse`` and is computed directly;
 * the LUT file is replaced by the closed-form XOR-prefix inverse

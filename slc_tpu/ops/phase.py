@@ -40,6 +40,9 @@ def phase_sincos(images: jax.Array) -> Tuple[jax.Array, jax.Array]:
     cosValue (CDecodePhase.cpp:64-65).
     """
     n = images.shape[0]
+    if n < 3:
+        # Two shifts 180 degrees apart leave the cos term identically 0.
+        raise ValueError(f"N-step phase decode needs n_steps >= 3, got {n}")
     imgs = images.astype(jnp.float32)
     k = jnp.arange(n, dtype=jnp.float32) * (2.0 * jnp.pi / n)
     coef_shape = (n,) + (1,) * (imgs.ndim - 1)
@@ -53,7 +56,7 @@ def wrapped_phase_to_pixels(sin_term: jax.Array, cos_term: jax.Array,
     """atan2 -> wrapped projector-px offset in (0, T], reference convention
     (CDecodePhase.cpp:67-74). The reference uses cvFastArctan (a ~0.3 deg
     LUT approximation); we use exact atan2, which is strictly more
-    accurate and free on the VPU."""
+    accurate and costs nothing in a memory-bound decode."""
     ang = jnp.arctan2(sin_term, cos_term)              # [-pi, pi]
     ang = jnp.where(ang < 0, ang + 2.0 * jnp.pi, ang)  # [0, 2*pi)
     pix = ang * (jnp.float32(period) / jnp.float32(2.0 * jnp.pi)) + 0.5

@@ -15,8 +15,7 @@ Reference behavior (DynaFrame/CCalculation.cpp:789-891), per frame:
 Tie-breaking is therefore: the center (offset 0) wins any tie; otherwise
 the smallest offset in scan order attaining the extremum wins. The XLA
 version below replicates this exactly with a static unrolled offset scan
-(2r fused select ops); the Pallas fused version lives in
-``slc_tpu.pallas.stripe_tracker``.
+(2r fused select ops).
 
 Known reference edge behavior, reproduced faithfully: near the left/right
 interior boundary the scan window reads zero border values of valSum, so
@@ -33,8 +32,9 @@ import jax.numpy as jnp
 
 
 def box_sum_vertical_raw(frame: jax.Array, window: int) -> jax.Array:
-    """Vertical ``window``-row box sum centered per row, zero-padded at
-    the top/bottom edges, no interior masking. Shared core of the local
+    """Vertical ``window``-row box sum centered per row (rows h-r ..
+    h-r+window-1, r = window//2), zero-padded at the top/bottom edges,
+    no interior masking. Shared core of the local
     and tile-parallel paths.
 
     Computed via an exclusive cumulative sum: box(h) = S(h+r+1) - S(h-r)
@@ -46,7 +46,9 @@ def box_sum_vertical_raw(frame: jax.Array, window: int) -> jax.Array:
     r = window // 2
     h, w = frame.shape
     f = frame.astype(jnp.float32)
-    fp = jnp.pad(f, ((r, r), (0, 0)))
+    # Rows [h - r, h - r + window): r above, window - 1 - r below (equal
+    # for the reference's odd window).
+    fp = jnp.pad(f, ((r, window - 1 - r), (0, 0)))
     s = jnp.concatenate(
         [jnp.zeros((1, w), jnp.float32), jnp.cumsum(fp, axis=0)], axis=0)
     return s[window:, :] - s[:-window, :]           # (h, w), centered
@@ -74,9 +76,9 @@ def windowed_extrema_raw(val_sum: jax.Array, window: int,
     r = window // 2
     h, w = val_sum.shape
 
-    # Lane-axis rolls are cheap on the VPU; a post-hoc gather
-    # (take_along_axis) is ~50x slower on TPU, so the parabola
-    # neighbors vm/vp are tracked during the scan instead.
+    # The parabola neighbors vm/vp are tracked during the scan (shifted
+    # copies that fuse into the same loop) instead of gathered at the
+    # winning offset afterwards.
     def rolled(i):
         return jnp.roll(val_sum, -i, axis=1)
 

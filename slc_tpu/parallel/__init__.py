@@ -1,14 +1,14 @@
 """Multi-device scaling: image-tile parallelism with halo exchange.
 
 The reference is single-threaded C++ with zero distribution (SURVEY.md §2,
-"Parallelism & distribution inventory"); every strategy here is the
-TPU-native north-star design:
+"Parallelism & distribution inventory"); every strategy here is new:
 
 * ``mesh``     — device-mesh construction (scan/data axis × image tiles),
 * ``halo``     — `ppermute` neighbor exchange for windowed stencils,
 * ``tiled``    — `shard_map` versions of the pipeline stages.
 
-Collectives ride ICI within a slice; no hand-written transport.
+Collectives are XLA's (NCCL on GPUs: every card reaches every other at
+one NVLink rate); no hand-written transport.
 """
 
 from slc_tpu.parallel.mesh import tile_mesh, TILE_Y, TILE_X, SCAN

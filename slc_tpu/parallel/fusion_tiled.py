@@ -4,8 +4,8 @@ Every Schur term is a sum over landmarks (slc_tpu.fusion), so the
 distribution is: each device owns a landmark shard, reduces its local
 Gauss-Newton blocks, one `psum` forms the global reduced camera system,
 the tiny (6S x 6S) solve is replicated, and landmark back-substitution
-stays local. Across hosts this is the DCN-scale data parallelism of
-SURVEY.md §2's distributed-solver row.
+stays local. Across hosts this is the data parallelism of SURVEY.md
+§2's distributed-solver row.
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ def tiled_fuse_scans(obs: jax.Array, mask: jax.Array, mesh: Mesh,
     if init_trans is None:
         init_trans = jnp.zeros((s, 3), obs.dtype)
 
+    @fusion._highest_precision
     def f(obs_l, mask_l, rot, trans):
         pred = jnp.einsum("sij,slj->sli", rot, obs_l) + trans[:, None, :]
         lm = (pred * mask_l[..., None]).sum(0) \

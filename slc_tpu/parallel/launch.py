@@ -3,8 +3,8 @@
 The reference is a single Windows process (DynaFrame/main.cpp:42-45); it has
 no launcher to mirror. This is the north-star multi-host entry point from
 SURVEY.md §7 (layer 9): one process per host, `jax.distributed.initialize`
-to join the cluster, then a global `Mesh` whose SCAN axis spans hosts (DCN)
-and whose tile axes stay within a slice (ICI).
+to join the cluster, then a global `Mesh` whose SCAN axis spans hosts and
+whose tile axes stay within one host's cards.
 
 Usage, one process per host::
 
@@ -13,8 +13,8 @@ Usage, one process per host::
     mesh = launch.global_tile_mesh(scan=ctx.process_count)
     batch = launch.shard_host_batch(mesh, P("scan"), local_scans)
 
-Environment variables (all optional — on TPU pods JAX auto-detects the
-cluster and none are needed; on CPU/GPU clusters set all three):
+Environment variables (set all three for a multi-process run; nothing in
+a GPU or CPU cluster tells JAX of the cluster otherwise):
 
 * ``SLC_COORDINATOR``   — ``host:port`` of process 0,
 * ``SLC_NUM_PROCESSES`` — total process count,
@@ -56,7 +56,7 @@ def initialize(coordinator_address: Optional[str] = None,
     """Join (or stand alone as) a JAX cluster and describe it.
 
     Resolution order for each argument: explicit parameter, then the
-    ``SLC_*`` environment variable, then JAX auto-detection (TPU pods).
+    ``SLC_*`` environment variable.
     A plain single-process run — nothing passed, nothing in the
     environment, single-host backend — skips `jax.distributed` entirely,
     so all tests and the single-chip benchmark go through this same
@@ -97,8 +97,8 @@ def global_tile_mesh(scan: Optional[int] = None,
     """A (scan, ty, tx) mesh over every device in the cluster.
 
     By default the SCAN axis gets one slot per process, so scan-level data
-    parallelism crosses hosts over DCN while the (ty, tx) image tiles — and
-    their `ppermute` halo traffic — stay on the devices of one host/slice.
+    parallelism crosses hosts while the (ty, tx) image tiles — and their
+    `ppermute` halo traffic — stay on the cards of one host.
     """
     if scan is None:
         scan = jax.process_count()

@@ -3,12 +3,15 @@
 Axes (SURVEY.md §2 parallelism table):
 
 * ``SCAN`` — data parallelism over independent scans / streaming batches
-  (maps across hosts / DCN at scale),
+  (the axis that spans hosts at scale),
 * ``TILE_Y`` / ``TILE_X`` — image-tile parallelism (the sequence-parallel
   analog): each device owns an (H/ty, W/tx) block of the camera image;
-  windowed ops exchange <=11-px halos over ICI
+  windowed ops exchange <=11-px halos with their neighbors
   (halo widths set by RECO_WINDOW_SIZE=21, StaticParameters.cpp:38, and
   the 3x3 blur, CCalculation.cpp:650).
+
+The mesh is a plain reshape of the device list: the cards of one host are
+joined all to all (NVLink), so no device order is better than another.
 """
 
 from __future__ import annotations
@@ -38,10 +41,9 @@ def tile_mesh(devices: Optional[Sequence[jax.Device]] = None,
     """Build a (scan, ty, tx) mesh over ``devices``.
 
     With ``tiles`` unspecified, the per-scan device count is factored
-    near-square, biased so ``tx`` (the lane/width axis) gets the larger
-    factor: image width is the last dimension, and splitting it keeps
-    per-device blocks wide enough for TPU lane tiling at typical
-    resolutions.
+    near-square, with the larger factor on ``tx``: camera images are
+    wider than tall, so this keeps the tiles near-square and the halo
+    bytes per tile small.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)

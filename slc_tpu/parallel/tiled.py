@@ -236,8 +236,9 @@ def tiled_batched_dynamic_step(states: TrackerState, frames: jax.Array,
                                subpixel: bool = True,
                                robust: bool = True):
     """Data parallelism over independent scans x image-tile parallelism:
-    the full multi-chip step (SURVEY.md §2 parallelism table — DP over
-    the scan axis rides DCN across hosts; the tile axes ride ICI).
+    the full multi-device step (SURVEY.md §2 parallelism table — data
+    parallelism over the scan axis, which spans hosts at scale; halo
+    exchange over the tile axes).
 
     ``states``/``frames`` carry a leading scan axis of size
     mesh.shape['scan'] (one scan sequence per scan-group). Returns

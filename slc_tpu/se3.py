@@ -9,6 +9,10 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+# Full float32 for every 3x3 contraction: a GPU may otherwise run a
+# float32 matmul in TF32, ~1e-3 relative error on poses and points.
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def hat(w: jax.Array) -> jax.Array:
     """(..., 3) -> (..., 3, 3) skew-symmetric cross-product matrix."""
@@ -24,7 +28,7 @@ def exp_so3(w: jax.Array) -> jax.Array:
     """Rodrigues: (..., 3) axis-angle -> (..., 3, 3) rotation."""
     theta = jnp.linalg.norm(w, axis=-1, keepdims=True)[..., None]
     k = hat(w)
-    k2 = k @ k
+    k2 = jnp.matmul(k, k, precision=_HIGHEST)
     th = jnp.maximum(theta, 1e-12)
     a = jnp.sin(th) / th
     b = (1.0 - jnp.cos(th)) / (th * th)
@@ -44,14 +48,16 @@ def exp_se3(xi: jax.Array) -> tuple:
 
 def apply(rot: jax.Array, trans: jax.Array, pts: jax.Array) -> jax.Array:
     """R p + t with broadcasting over leading axes of pts."""
-    return pts @ jnp.swapaxes(rot, -1, -2) + trans
+    return jnp.matmul(pts, jnp.swapaxes(rot, -1, -2),
+                      precision=_HIGHEST) + trans
 
 
 def compose(r1, t1, r2, t2):
     """(R1, t1) o (R2, t2): first apply 2, then 1."""
-    return r1 @ r2, apply(r1, t1, t2)
+    return jnp.matmul(r1, r2, precision=_HIGHEST), apply(r1, t1, t2)
 
 
 def invert(rot, trans):
     rt = jnp.swapaxes(rot, -1, -2)
-    return rt, -jnp.einsum("...ij,...j->...i", rt, trans)
+    return rt, -jnp.einsum("...ij,...j->...i", rt, trans,
+                           precision=_HIGHEST)

@@ -4,7 +4,7 @@ The reference's `CVisualization::Show` (DynaFrame/CVisualization.cpp:
 22-115) normalizes any dtype to 8-bit and imshows/saves it, gated by the
 VISUAL_DEBUG compile-time flag (StaticParameters.cpp:22); `CStorage::
 Store` (DynaFrame/CStorage.cpp:41-55) batch-writes image stacks with an
-auto-mkdir fallback. Headless TPU hosts have no HighGUI, so "show" means
+auto-mkdir fallback. Headless accelerator hosts have no HighGUI, so "show" means
 "write a BMP/odd-frame dump you can scp" — the same debug affordance
 without a display server. Gating is a runtime flag here, not a rebuild.
 """

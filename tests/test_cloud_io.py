@@ -13,7 +13,10 @@ from slc_tpu.io import (read_bmp, write_bmp, load_opencv_yaml,
                         save_calibration, load_calibration,
                         ReplayDataset, write_replay_dataset)
 
-REF_YML = "/root/reference/DynaFrame/DynaFrame/Result.yml"
+# The reference's example calibration (DynaFrame/Result.yml), regenerated
+# from Calibration.reference_example()'s float64 values in its
+# !!opencv-matrix schema.
+REF_YML = os.path.join(os.path.dirname(__file__), "data", "Result.yml")
 
 
 # ----------------------------------------------------------------- cloud
@@ -138,8 +141,8 @@ def test_bmp_color_roundtrip(tmp_path, rng):
 
 
 def test_load_reference_yaml():
-    """Parse the calibration file shipped with the reference
-    (Result.yml:1-28) and check known values."""
+    """Parse the reference-schema calibration file (Result.yml:1-28)
+    and check known values."""
     mats = load_opencv_yaml(REF_YML)
     assert set(mats) == {"CamMat", "ProMat", "R", "T"}
     assert mats["CamMat"].shape == (3, 3)

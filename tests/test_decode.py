@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from slc_tpu import patterns
 from slc_tpu import golden
@@ -174,3 +175,94 @@ def test_heterodyne_unwrap_noise_robust(rng):
         jnp.asarray(wrapped), periods, float(pro_w)))
     # Final re-anchoring is to the finest frequency: error == finest noise.
     assert np.abs(got - x).max() < 0.1
+
+
+# ------------------------------------------------- full decodes vs f64
+
+def _order_flips(got, want, period, atol):
+    """Pixels where the f32 path and the f64 oracle disagree by more
+    than ``atol`` must be whole fringe-order flips (|d| == period) at
+    rounding boundaries: isolated (no 2x2 block), returned as a mask."""
+    d = np.asarray(got, np.float64) - want
+    flip = np.abs(d) > atol
+    if flip.any():
+        np.testing.assert_allclose(np.abs(d[flip]), period, atol=1e-2)
+        blk = flip[:-1, :-1] & flip[1:, :-1] & flip[:-1, 1:] & flip[1:, 1:]
+        assert not blk.any(), "coherent block of order flips"
+    return flip
+
+
+@pytest.mark.parametrize("min_mod", [None, 2.0])
+def test_grayphase_decode_matches_golden(min_mod):
+    """Frame-0 Gray+phase decode + triangulation (decode_first_frame) on
+    a rendered sphere against the f64 oracle chain decode_gray ->
+    decode_phase -> gray_assisted_merge -> triangulate, with and without
+    the modulation mask."""
+    from slc_tpu import synth
+    from slc_tpu.calib import synthetic_calibration, build_tables
+    from slc_tpu.config import TEST_CONFIG as cfg
+    from slc_tpu.pipeline import decode_first_frame
+
+    calib = synthetic_calibration()
+    tables = build_tables(calib, cfg.cam_h, cfg.cam_w)
+    scene = synth.render_static_scene(calib, cfg, synth.sphere_surface(),
+                                      noise_sigma=1.0)
+    res = decode_first_frame(jnp.asarray(scene.gray_images),
+                             jnp.asarray(scene.phase_images), tables, cfg,
+                             min_modulation=min_mod)
+    pu = golden.gray_assisted_merge(
+        golden.decode_gray(scene.gray_images, cfg.gray_bits, cfg.pro_w),
+        golden.decode_phase(scene.phase_images, cfg.phase_period),
+        cfg.gray_period, cfg.phase_period)
+    if min_mod is not None:
+        pu = np.where(golden.modulation(scene.phase_images) > min_mod,
+                      pu, 0.0)
+    flip = _order_flips(res.proj_u, pu, cfg.phase_period, 1e-3)
+    assert flip.sum() <= 4
+    _, _, z = golden.triangulate(pu, np.asarray(calib.cam_k, np.float64),
+                                 calib.pro_mat(), cfg.fov_min, cfg.fov_max)
+    np.testing.assert_allclose(np.asarray(res.z)[~flip], z[~flip],
+                               atol=5e-3)
+
+
+@pytest.mark.parametrize("min_mod", [None, 2.0])
+def test_heterodyne_decode_matches_golden(min_mod):
+    """decode_heterodyne_frame on a rendered sphere against the f64
+    per-period decode -> beat cascade -> triangulate chain."""
+    from slc_tpu import synth
+    from slc_tpu.calib import synthetic_calibration, build_tables
+    from slc_tpu.config import TEST_CONFIG as cfg, HeterodyneConfig
+    from slc_tpu.pipeline import decode_heterodyne_frame
+
+    het = HeterodyneConfig()
+    periods = het.periods(cfg.pro_w)
+    calib = synthetic_calibration()
+    tables = build_tables(calib, cfg.cam_h, cfg.cam_w)
+    imgs, _, _ = synth.render_fringe_stack(
+        calib, cfg, synth.sphere_surface(), periods, het.phase_steps,
+        noise_sigma=1.0)
+    res = decode_heterodyne_frame(jnp.asarray(imgs), tables, cfg, het,
+                                  min_modulation=min_mod)
+    n = het.phase_steps
+    stacks = [imgs[i * n:(i + 1) * n] for i in range(len(periods))]
+    # decode_phase's (0, T] convention: T is congruent to 0.
+    wrapped = [np.mod(golden.decode_phase(s, p), p)
+               for s, p in zip(stacks, periods)]
+    pu = golden.heterodyne_unwrap(wrapped, periods, float(cfg.pro_w))
+    if min_mod is not None:
+        mod = np.min([golden.modulation(s) for s in stacks], axis=0)
+        pu = np.where(mod > min_mod, pu, 0.0)
+    flip = _order_flips(res.proj_u, pu, periods[0], 1e-2)
+    assert flip.sum() <= 8
+    _, _, z = golden.triangulate(pu, np.asarray(calib.cam_k, np.float64),
+                                 calib.pro_mat(), cfg.fov_min, cfg.fov_max)
+    np.testing.assert_allclose(np.asarray(res.z)[~flip], z[~flip],
+                               atol=5e-3)
+
+
+@pytest.mark.parametrize("steps", [1, 2])
+def test_phase_decode_rejects_degenerate_steps(steps):
+    """Fewer than 3 phase steps cannot separate sin from cos; the
+    decoders refuse at trace time instead of returning garbage."""
+    with pytest.raises(ValueError, match="n_steps"):
+        decode_phase(jnp.zeros((steps, 8, 16), jnp.uint8), 40.0)

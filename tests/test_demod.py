@@ -107,7 +107,7 @@ def test_phase_locked_tracking_discontinuous_scene():
     state = init_tracker(jnp.asarray(frames[0]),
                          jnp.asarray(pu_gt[0], jnp.float32),
                          jnp.asarray(z_gt[0], jnp.float32),
-                         CFG, use_pallas=False)
+                         CFG)
     state, res = run_sequence(state, jnp.asarray(frames[1:]), tables,
                               CFG, phase_lock=float(T), lock_win_u=21,
                               lock_win_v=9)
@@ -126,3 +126,48 @@ def test_phase_locked_tracking_discontinuous_scene():
         assert valid.mean() > 0.9
         med = float(np.median(side[valid]))
         assert med < 0.1, med
+
+
+@pytest.mark.parametrize("h", [90, 100])
+def test_locked_step_partial_last_gate_band(h):
+    """Image heights that leave a partial last GATE_BAND (26 and 36 rows
+    here): a carrier-gradient error confined to that band must gate the
+    band's correction off — so the locked step equals the open-loop
+    step there — while the full band above stays locked."""
+    from slc_tpu.dynamic import TrackerState, dynamic_step
+    from slc_tpu.ops.demod import GATE_BAND
+
+    cfg = SystemConfig(cam_h=h, cam_w=160, pro_h=96, pro_w=640,
+                       gray_bits=5)
+    calib = synthetic_calibration(cam_h=h, cam_w=160, pro_h=96, pro_w=640)
+    tables = build_tables(calib, h, 160)
+    frames, z_gt, pu_gt = synth.render_dynamic_sequence(
+        calib, cfg, 2, z0=50.0, dz_per_frame=0.08, stripe_period=T,
+        noise_sigma=1.0)
+    tail = np.arange(h) >= GATE_BAND
+    # 0.02 px/px ramp -> 2*pi/T * 0.02 ~ 10 mrad/px of carrier gradient,
+    # 5x the gate's 2 mrad/px; a constant bias above it passes the gate.
+    ramp = 0.02 * np.arange(160)[None, :] * tail[:, None]
+    pred = (pu_gt[1] + 1.3 + ramp).astype(np.float32)
+
+    dp, _ = stripe_phase_correction(jnp.asarray(frames[1]),
+                                    jnp.asarray(pred), float(T), 21, 9)
+    dp = np.asarray(dp)
+    assert np.all(dp[tail] == 0.0)
+    top = dp[12:GATE_BAND - 12, 12:-12]
+    assert np.median(np.abs(top + 1.3)) < 0.2     # locked to the truth
+
+    state = init_tracker(jnp.asarray(frames[0]),
+                         jnp.asarray(pu_gt[0] + ramp, jnp.float32),
+                         jnp.asarray(z_gt[0], jnp.float32), cfg)
+    copy = lambda s: TrackerState(*(jnp.array(a) for a in (
+        s.proj_u, s.strip_w, s.strip_b, s.z, s.frame_idx)))
+    _, opn = dynamic_step(copy(state), jnp.asarray(frames[1]), tables,
+                          cfg)
+    _, lck = dynamic_step(copy(state), jnp.asarray(frames[1]), tables,
+                          cfg, phase_lock=float(T), lock_win_u=21,
+                          lock_win_v=9)
+    np.testing.assert_array_equal(np.asarray(lck.proj_u)[tail],
+                                  np.asarray(opn.proj_u)[tail])
+    assert np.any(np.asarray(lck.proj_u)[~tail]
+                  != np.asarray(opn.proj_u)[~tail])

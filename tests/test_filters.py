@@ -2,6 +2,7 @@
 behavior."""
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from slc_tpu import golden
@@ -13,6 +14,15 @@ def test_box_blur_matches_golden(rng):
     ours = np.asarray(box_blur_3x3(jnp.asarray(x)))
     theirs = golden.box_blur_3x3(x)
     np.testing.assert_allclose(ours, theirs, atol=1e-5)
+
+
+def test_box_blur_wide_rows_match_golden(rng):
+    """A 2 MP-wide map of same-signed deltas (a frame of steady motion):
+    the rounding of each output must not grow with the row length."""
+    x = (0.5 + 0.1 * rng.normal(size=(8, 1632))).astype(np.float32)
+    ours = np.asarray(box_blur_3x3(jnp.asarray(x)))
+    np.testing.assert_allclose(ours, golden.box_blur_3x3(x), rtol=0,
+                               atol=4 * np.finfo(np.float32).eps)
 
 
 def test_box_blur_preserves_constant(rng):
@@ -47,41 +57,30 @@ def test_bilateral_hole_aware(rng):
     assert (out[img != 0] != 0).all()             # valid stays valid
 
 
-def test_bilateral_pallas_matches_xla_interior(rng):
-    """The fused Pallas bilateral kernel must match the XLA roll-per-tap
-    path on all interior pixels (borders differ by design: the kernel
-    treats out-of-image neighbors as missing, the XLA path wraps)."""
-    from slc_tpu.pallas.bilateral import bilateral_filter_pallas
-    h, w = 72, 100
-    z = 50.0 + rng.normal(0, 0.4, size=(h, w)).astype(np.float32)
-    z[rng.uniform(size=(h, w)) < 0.05] = 0.0       # holes
-    zj = jnp.asarray(z)
-    ref = np.asarray(bilateral_filter(zj, use_pallas=False))
-    got = np.asarray(bilateral_filter_pallas(zj, block_h=32,
-                                             interpret=True))
-    np.testing.assert_allclose(got[1:-1, 1:-1], ref[1:-1, 1:-1],
-                               atol=1e-4)
-    # Holes stay holes in both.
-    np.testing.assert_array_equal(got == 0.0, z == 0.0)
+@pytest.mark.parametrize("hole_aware", [True, False])
+@pytest.mark.parametrize("shape", [(24, 40), (17, 33)])
+def test_bilateral_matches_golden(rng, shape, hole_aware):
+    """The XLA bilateral filter against the f64 pixel loop: holes (5%)
+    stay holes and carry no weight, and neighbors outside the image are
+    missing rather than wrapped or replicated."""
+    z = (50.0 + rng.normal(0, 0.4, size=shape)).astype(np.float32)
+    z[rng.uniform(size=shape) < 0.05] = 0.0
+    got = np.asarray(bilateral_filter(jnp.asarray(z),
+                                      hole_aware=hole_aware))
+    want = golden.bilateral_filter(z, hole_aware=hole_aware)
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    if hole_aware:
+        np.testing.assert_array_equal(got == 0.0, z == 0.0)
 
 
-def test_bilateral_pallas_no_edge_wrap_at_lane_multiple_width(rng):
-    """Width an exact lane-tile multiple (the reference camera's 1280
-    is one): the kernel must still treat out-of-image columns as
-    missing, not wrap the left/right borders into each other
-    (code-review r3 finding — pad_w == w left no zero columns)."""
-    from slc_tpu.pallas.bilateral import bilateral_filter_pallas
-    h, w = 16, 128
-    z = np.full((h, w), 50.0, np.float32)
+def test_bilateral_borders_do_not_wrap():
+    """Column 0 must not see the far edge (the reference camera's 1280
+    px width is a power-of-two multiple, where a wrapped stencil would
+    mix the left and right borders), and row 0 must not see the last
+    row."""
+    z = np.full((16, 128), 50.0, np.float32)
     z[:, -1] = 80.0
-    out = np.asarray(bilateral_filter_pallas(jnp.asarray(z), block_h=16,
-                                             interpret=True))
-    # Column 0 must be untouched by the far-edge 80.0 values.
-    np.testing.assert_allclose(out[:, 0], 50.0, atol=1e-5)
-
-
-def test_bilateral_pallas_rejects_non_hole_aware():
-    import pytest
-    with pytest.raises(ValueError):
-        bilateral_filter(jnp.ones((8, 8), jnp.float32),
-                         hole_aware=False, use_pallas=True)
+    z[-1, :] = 80.0
+    out = np.asarray(bilateral_filter(jnp.asarray(z)))
+    np.testing.assert_allclose(out[:-2, 0], 50.0, atol=1e-5)
+    np.testing.assert_allclose(out[0, :-2], 50.0, atol=1e-5)

@@ -9,7 +9,6 @@ import json
 import time
 
 import jax.numpy as jnp
-import pytest
 
 from slc_tpu.metrics import MetricsLog, frame_stats, stage
 
@@ -37,25 +36,3 @@ def test_stage_records_wall_clock(tmp_path):
 def test_stage_without_log_is_fine():
     with stage("slc/anonymous"):
         pass
-
-
-def test_pallas_decoders_reject_degenerate_steps():
-    import jax.numpy as jnp
-    import numpy as np
-    from slc_tpu.pallas.grayphase import grayphase_decode_pallas
-    from slc_tpu.pallas.heterodyne import heterodyne_decode_pallas
-
-    h, w = 8, 128
-    c = jnp.ones((h, w), jnp.float32)
-    d = jnp.ones((h, w), jnp.float32)
-    scalars = jnp.zeros((1, 8), jnp.float32)
-    imgs = jnp.zeros((2 * 6 + 2, h, w), jnp.uint8)
-    with pytest.raises(ValueError, match="n_steps"):
-        grayphase_decode_pallas(imgs, c, d, scalars, gray_bits=6,
-                                gray_period=20.0, phase_period=40.0,
-                                n_steps=2, interpret=True)
-    imgs2 = jnp.zeros((3 * 2, h, w), jnp.uint8)
-    with pytest.raises(ValueError, match="n_steps"):
-        heterodyne_decode_pallas(imgs2, c, d, scalars,
-                                 periods=(20.0, 22.0, 24.0), extent=1280.0,
-                                 n_steps=2, interpret=True)

@@ -58,7 +58,7 @@ def _run(tables, frames, z_gt, pu_gt, scale_gradient, subpixel,
     state = init_tracker(jnp.asarray(frames[0]),
                          jnp.asarray(pu_gt[0], jnp.float32),
                          jnp.asarray(z_gt[0], jnp.float32),
-                         CFG, subpixel=subpixel, use_pallas=False)
+                         CFG, subpixel=subpixel)
     state, res = run_sequence(state, jnp.asarray(frames[1:]), tables, CFG,
                               scale_gradient=scale_gradient,
                               subpixel=subpixel, robust=robust)
@@ -112,7 +112,7 @@ def test_100_frame_phase_locked_tracking():
     state = init_tracker(jnp.asarray(frames[0]),
                          jnp.asarray(pu_gt[0], jnp.float32),
                          jnp.asarray(z_gt[0], jnp.float32),
-                         CFG, use_pallas=False)
+                         CFG)
     state, res = run_sequence(state, jnp.asarray(frames[1:]), tables,
                               CFG, phase_lock=12.0, lock_win_u=21,
                               lock_win_v=9)
@@ -140,7 +140,7 @@ def test_100_frame_reanchoring_bounds_drift():
     state = init_tracker(jnp.asarray(frames[0]),
                          jnp.asarray(pu_gt[0], jnp.float32),
                          jnp.asarray(z_gt[0], jnp.float32),
-                         CFG, use_pallas=False)
+                         CFG)
     frames_j = jnp.asarray(frames)
     anchor_every = 25
     res_z_last = None
@@ -160,7 +160,7 @@ def test_100_frame_reanchoring_bounds_drift():
                                      jnp.asarray(asc.phase_images),
                                      tables, CFG)
             state = reanchor(state, frames_j[f], dec.proj_u, dec.z,
-                             CFG, use_pallas=False)
+                             CFG)
             f += 1
 
     drift_anchored = _drift(res_z_last, z_gt[-1])

@@ -123,8 +123,8 @@ def test_run_streaming_stats():
 def test_measure_overlap_reports_consistent_timings():
     """measure_overlap's four legs must be self-consistent on any
     backend: pipelined <= sequential * 1.5 (timer noise allowance) and
-    all keys present. The real >=x overlap assertion runs on TPU only
-    (test_streaming_tpu.py) — CPU device_put is a synchronous copy."""
+    all keys present. The real overlap assertion runs on the GPU only
+    (test_streaming_gpu.py) — CPU device_put is a synchronous copy."""
     from slc_tpu.streaming import measure_overlap
     calib = synthetic_calibration(cam_h=CFG.cam_h, cam_w=CFG.cam_w,
                                   pro_h=CFG.pro_h, pro_w=CFG.pro_w)

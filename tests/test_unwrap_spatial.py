@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from slc_tpu.ops.unwrap_spatial import (unwrap_spatial, unwrap_to_reference,
                                         wrap_to_half, wrapped_gradients)
@@ -275,6 +276,51 @@ def test_restrict_prolong_are_adjoint(rng):
     lhs = float(np.sum(np.asarray(prolong2(jnp.asarray(e), h, w)) * r))
     rhs = float(np.sum(e * np.asarray(restrict2(jnp.asarray(r)))))
     np.testing.assert_allclose(lhs, rhs, rtol=1e-5)
+
+
+def _aggregation(h, w):
+    """Dense 2x2 piecewise-constant aggregation P ((h*w, hc*wc)),
+    ragged last row/column cells included."""
+    hc, wc = -(-h // 2), -(-w // 2)
+    p = np.zeros((h * w, hc * wc))
+    for i in range(h):
+        for j in range(w):
+            p[i * w + j, (i // 2) * wc + (j // 2)] = 1.0
+    return p
+
+
+@pytest.mark.parametrize("shape", [(8, 12), (9, 12), (8, 13), (11, 7)])
+def test_transfer_operators_match_aggregation(rng, shape):
+    """The multigrid transfers against the dense aggregation P, on even
+    and odd sizes: restrict2 == P^T, prolong2 == P, and coarsen_weights
+    == P^T A P (the exact Galerkin operator)."""
+    from slc_tpu.ops.unwrap_spatial import (restrict2, prolong2,
+                                            coarsen_weights)
+    h, w = shape
+    hc, wc = -(-h // 2), -(-w // 2)
+    p = _aggregation(h, w)
+    r = rng.normal(size=(h, w)).astype(np.float32)
+    e = rng.normal(size=(hc, wc)).astype(np.float32)
+    np.testing.assert_allclose(
+        np.asarray(restrict2(jnp.asarray(r))).ravel(),
+        p.T @ r.ravel(), atol=1e-5)
+    np.testing.assert_array_equal(
+        np.asarray(prolong2(jnp.asarray(e), h, w)).ravel(),
+        (p @ e.ravel()).astype(np.float32))
+    wy = rng.uniform(0.1, 1.0, (h - 1, w)).astype(np.float32)
+    wx = rng.uniform(0.1, 1.0, (h, w - 1)).astype(np.float32)
+    wy_c, wx_c = coarsen_weights(jnp.asarray(wy), jnp.asarray(wx), h, w)
+    assert wy_c.shape == (hc - 1, wc) and wx_c.shape == (hc, wc - 1)
+    np.testing.assert_allclose(
+        _dense_laplacian(np.asarray(wy_c), np.asarray(wx_c)),
+        p.T @ _dense_laplacian(wy, wx) @ p, atol=1e-5)
+
+
+def test_lane_pair_sum(rng):
+    from slc_tpu.ops.unwrap_spatial import lane_pair_sum
+    a = rng.normal(size=(5, 14)).astype(np.float32)
+    np.testing.assert_allclose(np.asarray(lane_pair_sum(jnp.asarray(a))),
+                               a.reshape(5, 7, 2).sum(-1), atol=1e-6)
 
 
 def test_vcycle_is_linear_and_symmetric(rng):
